@@ -1,9 +1,8 @@
-"""hysortk_tpu — a TPU-native distributed k-mer counting engine.
+"""hysortk_tpu — a distributed k-mer counting engine in JAX.
 
-A from-scratch JAX/XLA/Pallas redesign with the capabilities of
-CornellHPC/HySortK (ICPP'24), whose C++/MPI/OpenMP reference lives at
-/root/reference. The public facade mirrors the reference library API
-(reference: include/hysortk.hpp:10-16):
+A from-scratch JAX/XLA redesign with the capabilities of
+CornellHPC/HySortK (ICPP'24), a C++/MPI/OpenMP code. The public facade
+mirrors the reference library API (reference: include/hysortk.hpp:10-16):
 
     read_dna_buffer       -> read + 2-bit pack a (shard of a) FASTA file
     kmer_count            -> canonical k-mer counting with [L, U] filtering
@@ -115,44 +114,44 @@ def kmer_count(
     codes: np.ndarray,
     lengths: np.ndarray,
     config: Optional[KmerConfig] = None,
+    single_device: bool = False,
 ) -> tuple[KmerList, np.ndarray]:
     """Count canonical k-mers. Facade analogue of hysortk::kmer_count
     (src/hysortk.cpp:36-95). Returns (filtered KmerList, histogram array).
 
-    Falls back to bounded-memory streaming automatically when the one-shot
-    working set would not fit HBM headroom (the reference instead switches
-    sorters on MemFree, src/kmerops.cpp:1344-1379). With config.extension
-    the result is a KmerListExt carrying (ReadId, PosInRead) payloads."""
+    Runs sharded over every device of the host unless single_device is
+    set. Falls back to bounded-memory streaming automatically when the
+    one-shot working set would not fit device-memory headroom (the
+    reference instead switches sorters on MemFree,
+    src/kmerops.cpp:1344-1379). With config.extension the result is a
+    KmerListExt carrying (ReadId, PosInRead) payloads."""
     import jax
 
     cfg = config or KmerConfig()
-    n_dev = len(jax.devices())
+    n_dev = 1 if single_device else len(jax.devices())
     if cfg.extension:
         if n_dev > 1:
             from .parallel.pipeline import count_reads_sharded_ext
 
             return count_reads_sharded_ext(codes, lengths, cfg)
         return count_reads_ext(codes, lengths, cfg)
-    try:
-        from .runtime import memcheck
+    from .runtime import memcheck
 
-        headroom = memcheck.hbm_headroom_bytes()
-        need = int(codes.size) * (4 + 2 * cfg.words * 4 + 8) * 2 // n_dev
-        if headroom is not None and 0 < headroom < need:
-            from .runtime.scheduler import suggest_batch_bases
+    headroom = memcheck.hbm_headroom_bytes()
+    need = int(codes.size) * (4 + 2 * cfg.words * 4 + 8) * 2 // n_dev
+    if headroom is not None and 0 < headroom < need:
+        from .runtime.scheduler import suggest_batch_bases
 
-            batch = suggest_batch_bases(cfg)
-            if n_dev > 1:
-                from .parallel.pipeline import count_reads_sharded_streaming
+        batch = suggest_batch_bases(cfg)
+        if n_dev > 1:
+            from .parallel.pipeline import count_reads_sharded_streaming
 
-                return count_reads_sharded_streaming(
-                    codes, lengths, cfg, batch * n_dev
-                )
-            from .runtime.scheduler import count_reads_streaming
+            return count_reads_sharded_streaming(
+                codes, lengths, cfg, batch * n_dev
+            )
+        from .runtime.scheduler import count_reads_streaming
 
-            return count_reads_streaming(codes, lengths, cfg, batch)
-    except Exception:
-        pass
+        return count_reads_streaming(codes, lengths, cfg, batch)
     if n_dev > 1:
         from .parallel.pipeline import count_reads_sharded
 

@@ -1,6 +1,6 @@
 """Host-side FASTA input: index, partition, parse, 2-bit pack, flatten.
 
-TPU-native redesign of the reference's FastaIndex + DnaBuffer input stage
+Vectorized redesign of the reference's FastaIndex + DnaBuffer input stage
 (reference: src/fastaindex.cpp, src/dnabuffer.cpp, src/dnaseq.cpp):
 
   * `.fai` samtools index parsing (reference fastaindex.cpp:20-28) and

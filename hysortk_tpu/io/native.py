@@ -1,9 +1,10 @@
 """ctypes bindings for the native host-IO library (native/host_io.cpp).
 
-Loads (building on first use if a toolchain is present) the OpenMP-parallel
-C++ implementations of the host hot loops; every entry point has a numpy
-fallback with identical semantics, so the package works without a compiler
-and tests can compare the two.
+Loads the OpenMP-parallel C++ implementations of the host hot loops,
+building them first (if a toolchain is present) when the library is missing
+or older than its source. Every entry point has a numpy fallback with
+identical semantics, so the package works without a compiler and tests can
+compare the two.
 """
 
 from __future__ import annotations
@@ -16,8 +17,23 @@ from typing import Optional
 
 import numpy as np
 
-_NATIVE_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "native")
-_LIB_PATH = os.path.abspath(os.path.join(_NATIVE_DIR, "libhysortk_host.so"))
+_NATIVE_DIR = os.path.abspath(
+    os.path.join(os.path.dirname(__file__), "..", "..", "native")
+)
+LIB_PATH = os.path.join(_NATIVE_DIR, "libhysortk_host.so")
+_SRC_PATH = os.path.join(_NATIVE_DIR, "host_io.cpp")
+
+
+def _stale() -> bool:
+    """The library is missing or older than its source (the build uses
+    -march=native, so a library from another host must not be reused
+    once the source changed; chip_smoke.py also rebuilds it outright)."""
+    if not os.path.exists(LIB_PATH):
+        return True
+    return (
+        os.path.exists(_SRC_PATH)
+        and os.path.getmtime(_SRC_PATH) > os.path.getmtime(LIB_PATH)
+    )
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -30,18 +46,18 @@ def _load() -> Optional[ctypes.CDLL]:
         if _tried:
             return _lib
         _tried = True
-        if not os.path.exists(_LIB_PATH):
+        if _stale():
             try:
                 subprocess.run(
-                    ["make", "-C", os.path.abspath(_NATIVE_DIR)],
+                    ["make", "-C", _NATIVE_DIR],
                     check=True,
                     capture_output=True,
                     timeout=120,
                 )
-            except Exception:
+            except (OSError, subprocess.SubprocessError):
                 return None
         try:
-            lib = ctypes.CDLL(_LIB_PATH)
+            lib = ctypes.CDLL(LIB_PATH)
         except OSError:
             return None
 

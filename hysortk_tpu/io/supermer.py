@@ -5,8 +5,8 @@ Host-side analogue of the reference's SupermerEncoder + 2-bit repacking
 maximal run of consecutive k-mers (within one read) sharing a destination
 bucket; shipping the run's L bases instead of its L-k+1 separate keys
 compresses the wire by ~(k-m)/2x. The reference uses this format on every MPI
-byte; the TPU build exchanges packed keys directly over ICI (bandwidth is
-cheap there) and reserves supermers for the *host-to-host DCN hop* when a
+byte; this build exchanges packed keys directly over the device
+interconnect and reserves supermers for the *host-to-host hop* when a
 reader process feeds remote shards, and for spill-to-disk.
 
 Encoding is fully vectorized numpy: run boundaries are computed with mask

@@ -1,6 +1,6 @@
 """Run-length counting of sorted keys + [L, U] frequency filter.
 
-TPU-native redesign of the reference's linear count scan
+Data-parallel redesign of the reference's linear count scan
 (count_sorted_kmers, src/kmerops.cpp:1410-1479): instead of a sequential
 run-length encoder, run extents are computed densely with prefix/suffix scans:
 
@@ -55,7 +55,7 @@ def run_length_sum(
     """Like run_length_count but each slot contributes `weights[i]` to its run.
 
     Used by the combiner path (pre-aggregated (key, count) pairs arriving from
-    the exchange — the TPU analogue of the reference's GatheredKmerList merge,
+    the exchange — the analogue of the reference's GatheredKmerList merge,
     src/kmerops.cpp:546-581). With weights == valid this reduces to
     run_length_count.
     """
@@ -73,10 +73,7 @@ def run_length_sum(
     # (or n-1); invalid tail slots weigh 0, so letting the final run extend
     # into the sentinel tail changes nothing. prefix is NONDECREASING, so a
     # reverse cummin over (pre-head ? prefix : INT_MAX) propagates each
-    # run's closing prefix back to every slot of the run — no gather. (The
-    # previous formulation gathered prefix[run_end-1] and prefix[idx]:
-    # 2 x N-element gathers at the measured 82M elem/s = ~3.2 s of the
-    # 6.8 s _merge_runs_sum cost at 2^27, tools/diag_consolidate.py.)
+    # run's closing prefix back to every slot of the run — no gather.
     pre_head = jnp.concatenate(
         [head[1:], jnp.ones((1,), dtype=jnp.bool_)]
     )

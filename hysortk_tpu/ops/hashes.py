@@ -2,9 +2,9 @@
 
 The reference hashes minimizers/k-mers with MurmurHash3 x64-128
 (reference: include/hashfuncs.hpp:9-16, src/hashfuncs.cpp:42-252). Hashes only
-drive *distribution* (bucket ownership), never the counted output, so the TPU
-build is free to use 32-bit mixers that map well onto the VPU instead of
-emulating 64-bit multiplies. We use the murmur3 fmix32 finalizer as the mixing
+drive *distribution* (bucket ownership), never the counted output, so this
+build is free to use 32-bit mixers on the uint32 key words instead of
+64-bit multiplies. We use the murmur3 fmix32 finalizer as the mixing
 primitive, combined across key words with the boost-style hash_combine round.
 """
 

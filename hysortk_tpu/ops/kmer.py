@@ -1,6 +1,6 @@
 """Device-side packed canonical k-mer key construction.
 
-TPU-native redesign of the reference's Kmer<NLONGS> rolling-extension scan
+Data-parallel redesign of the reference's Kmer<NLONGS> rolling-extension scan
 (reference: include/kmer.hpp:107-345). Instead of a sequential per-read loop
 extending one k-mer at a time, every k-mer key of the whole flat base stream is
 built bit-parallel:

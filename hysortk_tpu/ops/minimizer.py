@@ -1,6 +1,6 @@
 """Minimizer scan: per-k-mer destination buckets, fully vectorized.
 
-TPU-native redesign of the reference's sequential monotonic-deque sliding
+Data-parallel redesign of the reference's sequential monotonic-deque sliding
 window minimum (reference: Minimizer_Deque, src/kmerops.cpp:1058-1073, and
 FindKmerDestinationsParallel, src/kmerops.cpp:1010-1041). A deque is
 data-dependent control flow, hostile to XLA; instead the window minimum over

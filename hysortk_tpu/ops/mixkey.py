@@ -2,7 +2,7 @@
 
 The reference routes k-mers to owner tasks by hashing (minimizer hash %
 tasks, src/kmerops.cpp:1044-1047) and then sorts the received k-mers — two
-independent orders, which on TPU would force two full sorts per shard (one to
+independent orders, which on a device would force two full sorts per shard (one to
 group by destination, one to order received keys). Instead the sharded
 pipeline sorts each shard's keys ONCE in a *mixed* key space:
 
@@ -15,8 +15,8 @@ Then
     into contiguous segments — uniformly sized even on skewed genomes;
   * equal mixed keys <=> equal keys (bijectivity), so run-length counting in
     mixed space is exact;
-  * the receiver gets S already-sorted runs needing only a log(S)-level
-    bitonic merge, not a full sort (ops/merge.py);
+  * the receiver gets S already-sorted runs to merge (a lax.sort
+    re-sort of the concatenation; see PERF.md);
   * the compacted results are un-mixed (M^-1) on the host.
 
 M is a cyclic Feistel-style network of murmur3 fmix32 steps

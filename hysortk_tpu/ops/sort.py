@@ -1,21 +1,18 @@
-"""Multiword key sort backends.
+"""Multiword key sort.
 
 The reference sorts KmerSeedStruct arrays with PARADIS (in-place parallel MSD
 radix, dependency/Paradis/paradissort.hpp:36-215) or RADULS (out-of-place
 cache-aware MSD radix, dependency/Raduls/raduls.h), chosen at runtime by free
-memory (src/kmerops.cpp:1344-1379). On TPU the equivalents are:
-
-  * "xla":    jax.lax.sort over the W uint32 key words (lexicographic via
-              num_keys), the correctness-first baseline.
-  * "pallas": on-chip radix sort (ops/radix.py), the performance path.
+memory (src/kmerops.cpp:1344-1379). Here the sort is jax.lax.sort over the W
+uint32 key words (lexicographic via num_keys), with any payloads carried as
+extra operands; XLA picks the device implementation.
 
 Invalid/padding slots are folded INTO the key as an all-ones sentinel rather
 than carried as a separate leading sort operand: a valid canonical k-mer can
 never be all-T (its reverse complement, all-A, is lexicographically smaller,
 so GetRep would have chosen it — reference include/kmer.hpp:316-321), hence
 the all-ones pattern in every word is unreachable and sorts strictly after
-every real key. This removes one full operand stream from the sort — a 1/3
-bandwidth saving at K=31.
+every real key. This removes one full operand stream from the sort.
 """
 
 from __future__ import annotations
@@ -48,7 +45,6 @@ def sort_keys(
     invalid: jnp.ndarray,
     words: Sequence[jnp.ndarray],
     payloads: Sequence[jnp.ndarray] = (),
-    backend: str = "xla",
 ) -> tuple[jnp.ndarray, list[jnp.ndarray], list[jnp.ndarray]]:
     """Sort by key words lexicographically, invalid slots last, carrying payloads.
 
@@ -56,67 +52,17 @@ def sort_keys(
     sorted_invalid is uint32 (0 = valid, 1 = invalid) for compatibility.
     """
     marked = apply_sentinel(invalid, words)
-    return sort_marked(marked, payloads, backend)
-
-
-def resolve_backend(
-    backend: str, n_items: int, n_operands: int, device=None
-) -> str:
-    """Resolve the "auto" backend to a concrete one at call time.
-
-    Host-side (reads /proc + HBM stats via memcheck), so it runs OUTSIDE
-    jit; every host entry point resolves before tracing. The analogue of
-    the reference's sort_decision call inside filter_kmer
-    (src/kmerops.cpp:198-246, decision at :1344-1379).
-    """
-    if backend != "auto":
-        return backend
-    return sort_decision(n_items, n_operands, device)
-
-
-def sort_decision(n_items: int, n_operands: int, device=None) -> str:
-    """Pick the sort backend from problem size + HBM headroom.
-
-    The reference chooses RADULS (out-of-place, faster) when the task fits
-    in 90% of free memory per rank, else PARADIS (in-place)
-    (src/kmerops.cpp:1344-1379). Here: the member-tile Pallas sort
-    (ops/pallas_msort.py) both tolerates tighter memory AND beats lax.sort
-    at every measured large scale (chip, 2-word keys, ties-free v4:
-    2^26: 166.2 vs 230.6 ms; 2^24: 75.9 vs 85.1 — 1.56x/1.35x incl the
-    fixed ~50 ms sync each). Below ~2^23 the Pallas launch overheads
-    (one pallas_call per merge pass) favor lax.sort.
-    """
-    from ..runtime import memcheck
-
-    need = 3 * n_items * n_operands * 4
-    headroom = memcheck.hbm_headroom_bytes(device)
-    if headroom is not None and headroom < need:
-        return "pallas"
-    return "pallas" if n_items >= (1 << 23) else "xla"
+    return sort_marked(marked, payloads)
 
 
 def sort_marked(
     marked: Sequence[jnp.ndarray],
     payloads: Sequence[jnp.ndarray] = (),
-    backend: str = "xla",
 ) -> tuple[jnp.ndarray, list[jnp.ndarray], list[jnp.ndarray]]:
     """Sort keys already carrying the all-ones invalid sentinel."""
-    assert backend in ("xla", "pallas"), (
-        f"unresolved backend {backend!r}: resolve 'auto' host-side first "
-        "(pipeline.resolved_cfg / resolve_backend)"
-    )
     n_words = len(marked)
-    if backend == "pallas":
-        from . import pallas_sort
-
-        sorted_words, sorted_payloads = pallas_sort.sort_words(
-            list(marked), list(payloads)
-        )
-    else:
-        out = jax.lax.sort(
-            (*marked, *payloads), num_keys=n_words, is_stable=False
-        )
-        sorted_words = list(out[:n_words])
-        sorted_payloads = list(out[n_words:])
+    out = jax.lax.sort((*marked, *payloads), num_keys=n_words, is_stable=False)
+    sorted_words = list(out[:n_words])
+    sorted_payloads = list(out[n_words:])
     inv_sorted = (~sentinel_valid(sorted_words)).astype(jnp.uint32)
     return inv_sorted, sorted_words, sorted_payloads

@@ -1,7 +1,7 @@
 """Exact-capacity geometry for the range exchange.
 
-The range exchange's receive-side merge needs pow2 x pow2 geometry
-(ops/merge.py), but the per-(src,dst) segment mean is itself a power of
+The range exchange's receive side uses pow2 x pow2 run geometry (a
+leftover of the bitonic merge network this build used to have), but the per-(src,dst) segment mean is itself a power of
 two whenever the batch is (production batches snap to pow2 flats), so ANY
 headroom used to round the slot capacity up to the next power of two —
 the old `next_pow2(capacity_factor * mean)` rule — made every receive-side
@@ -12,18 +12,13 @@ of the segment, where m = next_pow2(mean) holds the bulk and a small
 spill lane sc >> fluctuation absorbs the hash-uniform overhang
 (sigma ~ sqrt(n/S) keys). The exactness lives on the WIRE — the
 all_to_all ships ~2x fewer bytes; the receive side sentinel-pads each
-run back to 2m and feeds the ordinary pow2 merge
+run back to 2m before the merge
 (parallel/pipeline._range_exchange_merge).
 
-History (chip, 2^26/S=8, tools/bench_spill_merge.py): two 1x-plane
-receive formulations were built and measured before settling on the
-padded single merge (331.9 ms). Folding the spill tails into a 1x main
-plane by lexicographic binary search + scatter-add: 1329.6 ms (~27
-rounds of random gathers at 82M elem/s — gather-based search is never
-the answer on this hardware). Folding them by one extra top-level merge
-level: 566.0 ms (two merge calls materialize the plane twice). The
-sentinel-padded runs through ONE merge win although the network is
-data-movement bound — don't re-split the plane without new data.
+Two 1x-plane receive formulations were also built and dropped: folding
+the spill tails into a 1x main plane by lexicographic binary search +
+scatter-add, and by one extra top-level merge level (two merge calls
+materialize the plane twice). Neither has been measured on the H100.
 
 The reference avoids the problem with exact receive preallocation
 (src/kmerops.cpp:439-471) — possible there because MPI ranks exchange

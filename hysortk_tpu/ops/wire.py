@@ -3,7 +3,7 @@
 The reference moves every base over the wire 2-bit packed inside supermers
 (SupermerEncoder + copy_bits, src/kmerops.cpp:1096-1148) and re-extracts
 k-mers receiver-side (GatheredSupermer stage 2, src/kmerops.cpp:484-521).
-The TPU analogue of that receive-side parse: hosts feed devices
+The device analogue of that receive-side parse: hosts feed devices
 (packed uint32 words, read lengths) — ~2 bits/base + 4 B/read on the wire
 instead of 9 bits/base for (int8 codes + bool mask) — and the device
 reconstructs the flat (codes, valid) stream with dense bit math:
@@ -120,9 +120,8 @@ def fill_run_meta(
     run s starts at position pos0[s] of read rid0[s]. This is the decode of
     the reference's EXT supermer wire ({len, pos, rid} per supermer,
     include/kmer.hpp:348-360): piecewise-constant fill of arbitrary per-run
-    values by a boundary DIFF scatter + cumsum — O(n) scans, no gathers
-    (random gathers measure 82 M elem/s on this chip; scans are
-    bandwidth-bound). Only meaningful where valid_from_lengths is True.
+    values by a boundary DIFF scatter + cumsum — O(n) scans, no gathers.
+    Only meaningful where valid_from_lengths is True.
     """
     lengths = lengths.astype(jnp.int32)
     ends = jnp.cumsum(lengths)

@@ -3,7 +3,7 @@
 The reference over-partitions the key space into `avg_tasks * nprocs` virtual
 tasks, classifies heavy hitters (> heavy_ratio x avg, HeavyHitterClassifier,
 src/kmerops.cpp:1157-1199), and places tasks on ranks with a bounded first-fit
-dispatcher (BalancedDispatcher, src/kmerops.cpp:1214-1327). The TPU pipeline
+dispatcher (BalancedDispatcher, src/kmerops.cpp:1214-1327). The device pipeline
 only needs this machinery when routing by *minimizer* bucket (whose sizes are
 Zipf-skewed); the default key-hash routing is uniform by construction.
 
@@ -35,7 +35,7 @@ def bucket_sizes_device(
 def classify(sizes: np.ndarray, heavy_ratio: float = 2.3) -> np.ndarray:
     """Mark buckets whose size exceeds heavy_ratio x mean as HEAVY.
 
-    Mirrors HeavyHitterClassifier (src/kmerops.cpp:1157-1199). In the TPU
+    Mirrors HeavyHitterClassifier (src/kmerops.cpp:1157-1199). In the device
     pipeline heavy buckets get the combiner pre-aggregation; the reference
     instead switches them to the ScatteredKmerList send path.
     """

@@ -1,6 +1,6 @@
 """Key-space bucket exchange over the device mesh.
 
-TPU-native replacement for the reference's two-stage batched MPI exchange
+Device-collective replacement for the reference's two-stage batched MPI exchange
 (TaskManager round loop + MPI_Ialltoall, src/kmerops.cpp:587-1007). The
 reference's protocol exists to solve two problems MPI has and XLA doesn't:
 unknown receive sizes (solved there by a count Alltoallv *before* payload,
@@ -48,7 +48,7 @@ def pack_by_destination(
     """
     dest_key = jnp.where(invalid == 0, dest.astype(jnp.uint32), jnp.uint32(num_shards))
     inv_s, sorted_rest, _ = sort_ops.sort_keys(
-        invalid, [dest_key, *words, *payloads], backend="xla"
+        invalid, [dest_key, *words, *payloads]
     )
     dest_s = sorted_rest[0]
     words_s = sorted_rest[1 : 1 + len(words)]
@@ -85,9 +85,8 @@ def pack_sorted_ranges(
     are their boundaries. No destination sort is needed — packing is S
     dynamic slices of `capacity` contiguous elements each.
 
-    Chip-measured (tools/bench_sharded_step.py, 2^26 x S=8): the earlier
-    (S, capacity) gather formulation lowers generically and costs 3.76 s;
-    the dynamic-slice form is 61 ms (~11 ms true) — 61x. Each array is
+    Dynamic slices, not an (S, capacity) gather: the gather form lowers
+    generically and moves every element through an index. Each array is
     padded by `capacity` tail elements so no slice start ever clamps
     (dynamic_slice clamps the START, which would shift — i.e. corrupt —
     the carved segment; slots past each row's count are masked or never

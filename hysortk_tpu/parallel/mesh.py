@@ -1,8 +1,8 @@
 """Device mesh helpers for the sharded pipeline.
 
 The reference's distribution unit is an MPI rank; ours is a mesh shard. One
-1-D `shards` axis covers both intra-host ICI and cross-host DCN (JAX lays the
-axis out so neighboring shards ride ICI first).
+1-D `shards` axis covers every device: on one host the cards reach each
+other all to all (NVLink), so the mesh follows the algorithm alone.
 """
 
 from __future__ import annotations

@@ -1,18 +1,18 @@
 """Multi-host orchestration: distributed init, per-host reading, global mesh.
 
 The reference scales across nodes with MPI ranks + Scatterv partitioning
-(src/fastaindex.cpp:102-200). The TPU equivalents:
+(src/fastaindex.cpp:102-200). The JAX equivalents:
 
   * jax.distributed.initialize()   <-> MPI_Init across hosts
   * per-host .fai partition        <-> root getpartition + Scatterv (every
     host parses the small .fai itself and takes its slice; no root needed)
   * jax.make_array_from_process_local_data assembles the globally-sharded
-    flat (codes, valid) arrays over a DCN x ICI mesh
+    flat (codes, valid) arrays over one mesh of every host's devices
   * the shard_map pipeline (parallel/pipeline.py) then runs unchanged —
-    XLA routes the all_to_all over ICI within a host and DCN across hosts.
+    XLA routes the all_to_all within a host and across hosts.
 
 Single-process degenerates to the plain sharded pipeline, which is how CI
-covers this module; real multi-host needs a pod slice.
+covers this module; real multi-host needs several machines.
 """
 
 from __future__ import annotations
@@ -91,9 +91,8 @@ def _gather_kmerlist(
 ) -> KmerList:
     """Assemble this host's KmerList from sharded device outputs. The
     exact-capacity range exchange folds spill entries into the merged
-    plane itself (one extra merge level,
-    parallel/pipeline._range_exchange_merge), so no leftover handling
-    exists here."""
+    plane itself (parallel/pipeline._range_exchange_merge), so no leftover
+    handling exists here."""
     keep_local = _local_shards(keep)
     keys_local = np.stack(
         [_local_shards(w)[keep_local] for w in keys], axis=-1
@@ -149,7 +148,6 @@ def _count_multihost_packed(
     degenerates to a sharded device_put).
     """
     from . import dispatch
-    from ..pipeline import resolved_cfg
 
     mesh = mesh if mesh is not None else Mesh(
         np.asarray(jax.devices()), (SHARD_AXIS,)
@@ -159,7 +157,6 @@ def _count_multihost_packed(
         1 for d in mesh.devices.flat if d.process_index == pidx
     )
     num_shards = mesh.devices.size
-    cfg = resolved_cfg(cfg, codes.size // max(n_local_dev, 1))
 
     packed2d, lens2d, block, _ = shard_pipeline.distribute_reads_packed(
         codes, lengths, cfg, n_local_dev
@@ -227,16 +224,13 @@ def _count_multihost_unpacked(
     mesh = Mesh(np.asarray(jax.devices()), (SHARD_AXIS,))
     n_local_dev = jax.local_device_count()
     num_shards = mesh.devices.size
-    from ..pipeline import resolved_cfg
-
-    cfg = resolved_cfg(cfg, codes.size // max(n_local_dev, 1))
     # Distribute this host's reads over its local devices.
     local_codes, local_valid = shard_pipeline.distribute_reads(
         codes, lengths, cfg, n_local_dev
     )
     block = local_codes.shape[0] // n_local_dev
 
-    # Equalize block sizes across hosts (DCN all-to-all needs a uniform
+    # Equalize block sizes across hosts (the all-to-all needs a uniform
     # global shape): pad to the max block via a process allgather.
     if jax.process_count() > 1:
         from jax.experimental import multihost_utils
@@ -297,13 +291,12 @@ def count_fasta_multihost_streaming(
     """
     import dataclasses
 
-    from ..pipeline import resolved_cfg
     from . import dispatch
 
     if cfg.routing == "supermer":
         # This loop's exchange is the key-space one; silently running it
         # under a supermer request would swap the wire format the caller
-        # asked for (advisor round-3). Dispatch to the supermer rounds.
+        # asked for. Dispatch to the supermer rounds.
         from . import supermer_route
 
         return supermer_route.count_fasta_multihost_supermer_streaming(
@@ -314,9 +307,6 @@ def count_fasta_multihost_streaming(
     mesh = Mesh(np.asarray(jax.devices()), (SHARD_AXIS,))
     n_local_dev = jax.local_device_count()
     num_shards = mesh.devices.size
-    cfg = resolved_cfg(
-        cfg, min(batch_bases, max(codes.size, 1)) // max(n_local_dev, 1)
-    )
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
 
     # Agree on the batch count and one compiled block shape across hosts.
@@ -518,7 +508,7 @@ def count_fasta_multihost_ext(
     of read counts, src/kmerops.cpp:66).
     """
     from ..io import fasta as fasta_io
-    from ..pipeline import KmerListExt, resolved_cfg
+    from ..pipeline import KmerListExt
     from jax.sharding import NamedSharding
 
     mesh = Mesh(np.asarray(jax.devices()), (SHARD_AXIS,))
@@ -533,9 +523,6 @@ def count_fasta_multihost_ext(
     rid_offset = my_part[0] if my_part else 0
     codes, lengths = fasta_io.read_records(fasta_path, mine)
 
-    cfg = resolved_cfg(
-        cfg, codes.size // max(n_local_dev, 1), extra_operands=2
-    )
     kmerlist = _multihost_ext_pass(
         codes, lengths, cfg, mesh, n_local_dev, num_shards, rid_offset
     )
@@ -636,7 +623,7 @@ def count_fasta_multihost_ext_streaming(
     import dataclasses
 
     from ..io import fasta as fasta_io
-    from ..pipeline import host_histogram, merge_ext_partials, resolved_cfg
+    from ..pipeline import host_histogram, merge_ext_partials
     from ..runtime.scheduler import iter_read_batches
 
     mesh = Mesh(np.asarray(jax.devices()), (SHARD_AXIS,))
@@ -650,10 +637,6 @@ def count_fasta_multihost_ext_streaming(
     rid_offset = my_part[0] if my_part else 0
     codes, lengths = fasta_io.read_records(fasta_path, mine)
 
-    cfg = resolved_cfg(
-        cfg, min(batch_bases, max(codes.size, 1)) // max(n_local_dev, 1),
-        extra_operands=2,
-    )
     cfg_pre = dataclasses.replace(cfg, unfiltered=True)
 
     # Agree on the batch count and the per-batch block shape across hosts

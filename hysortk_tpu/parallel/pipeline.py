@@ -5,11 +5,11 @@ default is the *range exchange*: one shard_map program per device batch does
 
   canonical keys -> invertible mix (ops/mixkey.py) -> ONE local sort
   -> contiguous per-destination segments -> all_to_all
-  -> bitonic merge of the S received sorted runs (ops/merge.py)
+  -> merge of the S received sorted runs (a lax.sort re-sort)
   -> run-length count -> [L,U] filter
 
 Because the mixed sort key doubles as the routing key, the sharded step
-costs exactly one full local sort plus a log(S)-level merge — the
+costs one full local sort plus a receive-side merge — the
 reference instead pays a full receive-side radix sort per task
 (src/kmerops.cpp:535-541) because its MPI recv buffers arrive unsorted.
 
@@ -41,14 +41,13 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from jax.experimental.shard_map import shard_map
+from jax import shard_map
 from jax.sharding import Mesh, PartitionSpec as P
 
 from ..config import KmerConfig
 from ..ops import count as count_ops
 from ..ops import hashes
 from ..ops import kmer as kmer_ops
-from ..ops import merge as merge_ops
 from ..ops import mixkey
 from ..ops import sort as sort_ops
 from ..pipeline import KmerList
@@ -100,11 +99,9 @@ def range_capacity(n_local: int, num_shards: int, cfg: KmerConfig) -> int:
     # Capacity needs NO pow2 rounding of its own: each cell is a
     # contiguous slice of one sorted segment, so any slot count works on
     # the wire, and the receive side pads to 2 x (largest pow2 <= capacity)
-    # for the merge geometry either way. The round-4 rule rounded the MEAN
-    # up to a pow2 first, which at a mean just above a pow2 boundary
-    # shipped 2.03x n_local and merged 4x (measured: CPU-mesh @2-device
-    # weak-scaling efficiency fell 0.83 -> 0.55; tools/bench_decomposition
-    # caught it). mean + mean/64 keeps the hash-uniform overhang margin
+    # for the merge geometry either way. Rounding the MEAN up to a pow2
+    # first would, at a mean just above a pow2 boundary, ship 2.03x
+    # n_local and merge 4x. mean + mean/64 keeps the hash-uniform overhang margin
     # (sigma ~ sqrt(mean) << mean/64) at every mean and degenerates to the
     # old geometry exactly when the mean is itself a power of two.
     return mean + max(mean >> 6, 64)
@@ -112,14 +109,8 @@ def range_capacity(n_local: int, num_shards: int, cfg: KmerConfig) -> int:
 
 def _build_marked_mixed(codes, valid, cfg: KmerConfig):
     """codes/valid -> sentinel-marked, invertibly-mixed key words."""
-    if cfg.fuse_keybuild:
-        from ..ops import keybuild
-
-        marked = keybuild.canonical_keys_fused(codes, valid, cfg.k)
-    else:
-        words = kmer_ops.canonical_words(codes.astype(jnp.int32), cfg.k)
-        marked = sort_ops.apply_sentinel(~valid, words)
-    return mixkey.mix_keys(marked)
+    words = kmer_ops.canonical_words(codes.astype(jnp.int32), cfg.k)
+    return mixkey.mix_keys(sort_ops.apply_sentinel(~valid, words))
 
 
 def _bounds(cfg: KmerConfig) -> tuple[int, int]:
@@ -128,8 +119,7 @@ def _bounds(cfg: KmerConfig) -> tuple[int, int]:
 
 def _empty_leftover_planes(n_words: int):
     """Uniform (1,)-dummy leftover planes. The spill lane now folds into
-    the merged plane itself (one extra merge level in
-    _range_exchange_merge), so no path produces real leftovers; the slots
+    the merged plane itself (_range_exchange_merge), so no path produces real leftovers; the slots
     stay in the 8-tuple shard-body contract so every routing returns the
     same pytree structure."""
     xw = tuple(
@@ -141,12 +131,6 @@ def _empty_leftover_planes(n_words: int):
 def _count_merged(merged_words, cfg: KmerConfig):
     """Sorted sentinel-marked words -> (cnt, keep)."""
     lower, upper = _bounds(cfg)
-    if cfg.fuse_count:
-        from ..ops import pallas_count
-
-        return pallas_count.run_length_count_filter(
-            merged_words, lower, upper
-        )
     svalid = sort_ops.sentinel_valid(merged_words)
     head, cnt = count_ops.run_length_count(svalid, merged_words)
     keep = count_ops.frequency_filter(head, cnt, lower, upper)
@@ -160,7 +144,7 @@ def _range_exchange_merge(
 
     The shared middle of the range pipelines: segment boundaries by
     searchsorted on static range boundaries, contiguous-range pack, padded
-    all_to_all, sentinel-mask, bitonic merge. Returns
+    all_to_all, sentinel-mask, merge. Returns
     (merged_words, merged_payloads, spill_words, spill_payloads,
     dest_totals, overflow_flag), where dest_totals are the global
     per-destination element counts — computed for FREE from the segment
@@ -173,10 +157,12 @@ def _range_exchange_merge(
     largest pow2. Each cell carries the segment's first `capacity`
     contiguous elements — the all_to_all ships ~2x fewer bytes than the
     old next_pow2(1.6 x mean) = 2m rule. The receive side sentinel-pads
-    each run back to 2m and feeds the ordinary pow2 merge network: the
-    chip-measured optimum (see the inline note below; two 1x-plane
-    formulations both lost). sc == 0 (pow2 capacity — EXT mode, legacy
-    callers) keeps the 1x single-plane behavior.
+    each run back to 2m before the merge (see ops/spill.py for the
+    formulations this replaced). sc == 0 (pow2 capacity — EXT mode,
+    legacy callers) keeps the 1x single-plane behavior. The padding and
+    the pow2 run count below are a leftover of the bitonic merge network
+    this build used to have; the lax.sort re-sort that replaced it does
+    not need them (ROADMAP).
     """
     from ..ops import spill as spill_ops
 
@@ -202,14 +188,7 @@ def _range_exchange_merge(
     if sc:
         # Exact capacity lives on the WIRE (m + sc slots per cell, the
         # ~2x all_to_all byte saving); the receive side pads each
-        # received run to the next pow2 (2m) with sentinels and feeds ONE
-        # merge. Chip-measured alternatives at 2^26/S=8
-        # (tools/bench_spill_merge.py): this padded single merge 331.9 ms;
-        # splitting a 1x main plane + folding the spill tails back in by
-        # an extra top-level merge 566 ms; folding them by lexicographic
-        # binary search + scatter-add 1329.6 ms. The bitonic network is
-        # data-movement bound but sentinel-padded runs still beat every
-        # plane-splitting formulation — don't re-split without new data.
+        # received run to the next pow2 (2m) with sentinels.
         run = 2 * m
         pad = run - capacity
         full = jnp.full((num_shards, pad), jnp.uint32(0xFFFFFFFF))
@@ -217,8 +196,8 @@ def _range_exchange_merge(
         zeros = jnp.zeros((num_shards, pad), jnp.uint32)
         recv_p = [jnp.concatenate([p, zeros], axis=1) for p in recv_p]
 
-    # Pad the run count to a power of two with all-sentinel runs (the
-    # bitonic merge needs pow2 x pow2 geometry; m is pow2 by construction).
+    # Pad the run count to a power of two with all-sentinel runs (pow2 x
+    # pow2 geometry; m is pow2 by construction).
     s2 = _next_pow2(num_shards)
     if s2 != num_shards:
         pad_rows = s2 - num_shards
@@ -227,16 +206,10 @@ def _range_exchange_merge(
         zeros = jnp.zeros((pad_rows, run), jnp.uint32)
         recv_p = [jnp.concatenate([p, zeros]) for p in recv_p]
 
-    n_words = len(recv_w)
-    flat = [w.reshape(-1) for w in recv_w] + [p.reshape(-1) for p in recv_p]
-    merged = merge_ops.merge_sorted_runs(flat, n_words, run)
-
-    return (
-        merged[:n_words],
-        merged[n_words:],
-        dest_totals,
-        overflow,
+    _, merged_w, merged_p = sort_ops.sort_marked(
+        [w.reshape(-1) for w in recv_w], [p.reshape(-1) for p in recv_p]
     )
+    return merged_w, merged_p, dest_totals, overflow
 
 
 def _shard_body_range(
@@ -244,7 +217,7 @@ def _shard_body_range(
 ):
     """Default per-shard program: one sort, contiguous pack, merge."""
     mixed = _build_marked_mixed(codes.astype(jnp.int8), valid, cfg)
-    _, mixed_s, _ = sort_ops.sort_marked(mixed, backend=cfg.sort_backend)
+    _, mixed_s, _ = sort_ops.sort_marked(mixed)
     merged_w, _, totals, overflow = _range_exchange_merge(
         mixed_s, [], cfg, num_shards, capacity
     )
@@ -270,14 +243,13 @@ def _shard_body_range_combiner(
     the gathered KmerList concatenation (src/kmerops.cpp:546-581).
     """
     mixed = _build_marked_mixed(codes.astype(jnp.int8), valid, cfg)
-    _, mixed_s, _ = sort_ops.sort_marked(mixed, backend=cfg.sort_backend)
+    _, mixed_s, _ = sort_ops.sort_marked(mixed)
     svalid = sort_ops.sentinel_valid(mixed_s)
     head, local_cnt = count_ops.run_length_count(svalid, mixed_s)
     full = jnp.uint32(0xFFFFFFFF)
     entry_words = [jnp.where(head, w, full) for w in mixed_s]
     _, entry_s, pay_s = sort_ops.sort_marked(
-        entry_words, [local_cnt.astype(jnp.uint32)],
-        backend=cfg.sort_backend,
+        entry_words, [local_cnt.astype(jnp.uint32)]
     )
     merged_w, merged_p, totals, overflow = (
         _range_exchange_merge(entry_s, pay_s, cfg, num_shards, capacity)
@@ -329,9 +301,7 @@ def _shard_body_bucketed(
             sort_words_in = [bucket.astype(jnp.uint32), *words]
         else:
             sort_words_in = list(words)
-        inv_s, words_s_all, _ = sort_ops.sort_keys(
-            invalid, sort_words_in, backend=cfg.sort_backend
-        )
+        inv_s, words_s_all, _ = sort_ops.sort_keys(invalid, sort_words_in)
         svalid = inv_s == 0
         head, local_cnt = count_ops.run_length_count(svalid, words_s_all)
         entry_invalid = (~head).astype(jnp.uint32)
@@ -363,15 +333,13 @@ def _shard_body_bucketed(
     if cfg.combiner:
         weights = recv_p[0].reshape(-1)
         inv_s, words_s, payloads_s = sort_ops.sort_keys(
-            flat_invalid, flat_w, payloads=[weights], backend=cfg.sort_backend
+            flat_invalid, flat_w, payloads=[weights]
         )
         weights_s = payloads_s[0].astype(jnp.int32)
         svalid = inv_s == 0
         head, cnt = count_ops.run_length_sum(svalid, words_s, weights_s)
     else:
-        inv_s, words_s, _ = sort_ops.sort_keys(
-            flat_invalid, flat_w, backend=cfg.sort_backend
-        )
+        inv_s, words_s, _ = sort_ops.sort_keys(flat_invalid, flat_w)
         svalid = inv_s == 0
         head, cnt = count_ops.run_length_count(svalid, words_s)
 
@@ -406,7 +374,7 @@ def _count_sharded_jit(codes, valid, assign, *, cfg, num_shards, capacity, mesh)
             mesh=mesh,
             in_specs=(P(SHARD_AXIS), P(SHARD_AXIS)),
             out_specs=out_specs,
-            check_rep=False,
+            check_vma=False,
         )(codes, valid)
     body = functools.partial(
         _shard_body_bucketed, cfg=cfg, num_shards=num_shards, capacity=capacity
@@ -416,7 +384,7 @@ def _count_sharded_jit(codes, valid, assign, *, cfg, num_shards, capacity, mesh)
         mesh=mesh,
         in_specs=(P(SHARD_AXIS), P(SHARD_AXIS), P()),
         out_specs=out_specs,
-        check_rep=False,
+        check_vma=False,
     )(codes, valid, assign)
 
 
@@ -431,7 +399,7 @@ def _count_sharded_packed_jit(
     packed, lengths, *, cfg, num_shards, capacity, block_len, mesh
 ):
     """Range pipeline fed by the 2-bit packed wire (2 bits/base + 4 B/read
-    host->device instead of 9 bits/base) — the TPU analogue of the
+    host->device instead of 9 bits/base) — the device analogue of the
     reference's receive-side supermer parse (src/kmerops.cpp:484-521)."""
     from ..ops import wire
 
@@ -452,7 +420,7 @@ def _count_sharded_packed_jit(
             word_specs, P(SHARD_AXIS), P(SHARD_AXIS),
             word_specs, P(SHARD_AXIS), P(SHARD_AXIS), P(), P(),
         ),
-        check_rep=False,
+        check_vma=False,
     )(packed, lengths)
 
 
@@ -485,7 +453,7 @@ def _count_sharded_ext_packed_jit(
         mesh=mesh,
         in_specs=(P(SHARD_AXIS),) * 3,
         out_specs=(word_specs,) + (P(SHARD_AXIS),) * 4 + (P(), P()),
-        check_rep=False,
+        check_vma=False,
     )(packed, lengths, rid_base)
 
 
@@ -573,7 +541,7 @@ def _bucket_sizes_jit(codes, valid, *, cfg, num_shards, mesh):
         mesh=mesh,
         in_specs=(P(SHARD_AXIS), P(SHARD_AXIS)),
         out_specs=(P(), P()),
-        check_rep=False,
+        check_vma=False,
     )(codes, valid)
 
 
@@ -591,7 +559,7 @@ def plan_sharded_step(
     Minimizer routing with the balanced dispatcher measures global bucket
     sizes anyway (the dispatcher's input); the per-shard local sizes ride
     the same pass, so the per-(src,dst) maxima are EXACT and measured=True
-    (overflow impossible, no retry path) — VERDICT round-2 #10.
+    (overflow impossible, no retry path).
     """
     assign = jnp.zeros(1, dtype=jnp.int32)
     if cfg.routing == "minimizer":
@@ -649,9 +617,6 @@ def count_flat_sharded(
     assert n % num_shards == 0, (n, num_shards)
     n_local = n // num_shards
 
-    from ..pipeline import resolved_cfg
-
-    cfg = resolved_cfg(cfg, n_local)
     codes_j = jnp.asarray(codes, dtype=jnp.int8)
     valid_j = jnp.asarray(valid)
 
@@ -789,7 +754,7 @@ def count_reads_sharded(
 
 
 # ---------------------------------------------------------------------------
-# Sharded streaming: bounded HBM at any input size on a mesh — the TPU
+# Sharded streaming: bounded HBM at any input size on a mesh — the
 # analogue of the reference's bounded-memory round loop
 # (src/kmerops.cpp:906-1007). Device batches stream through the sharded
 # exchange with an UNFILTERED count (every distinct key survives, the
@@ -805,10 +770,10 @@ def count_reads_sharded(
 )
 def _merge_partials_jit(words, cnts, *, cfg, num_shards, run_len, mesh):
     """Per-shard merge of accumulated partials: each per-batch partial is
-    already an ascending sorted run (compacted from sorted device output),
-    so this enters the bitonic network at region 2*run_len (ops/merge.py)
-    instead of re-sorting the concatenation — the linear-merge analogue of
-    the reference's count_sorted_kmerlist (src/kmerops.cpp:1447-1476).
+    already an ascending sorted run (compacted from sorted device output);
+    the merge is a lax.sort re-sort of the concatenation (see PERF.md for
+    its cost against a bitonic merge network) — the analogue of the
+    reference's count_sorted_kmerlist (src/kmerops.cpp:1447-1476).
     No exchange: keys are already owner-placed.
 
     words: tuple of W (S*R*run_len,) sentinel-marked key arrays laid out as
@@ -817,10 +782,7 @@ def _merge_partials_jit(words, cnts, *, cfg, num_shards, run_len, mesh):
 
     def body(*args):
         *ws, cn = args
-        merged = merge_ops.merge_sorted_runs(
-            [w for w in ws] + [cn], len(ws), run_len
-        )
-        words_s, pay = merged[: len(ws)], merged[len(ws)]
+        _, words_s, (pay,) = sort_ops.sort_marked(list(ws), [cn])
         svalid = sort_ops.sentinel_valid(words_s)
         head, total = count_ops.run_length_sum(
             svalid, words_s, pay.astype(jnp.int32)
@@ -835,7 +797,7 @@ def _merge_partials_jit(words, cnts, *, cfg, num_shards, run_len, mesh):
         mesh=mesh,
         in_specs=(P(SHARD_AXIS),) * (w + 1),
         out_specs=(word_specs, P(SHARD_AXIS), P(SHARD_AXIS)),
-        check_rep=False,
+        check_vma=False,
     )(*words, cnts)
 
 
@@ -875,9 +837,6 @@ def count_reads_sharded_streaming(
 
     mesh = mesh or make_mesh()
     num_shards = mesh.devices.size
-    from ..pipeline import resolved_cfg
-
-    cfg = resolved_cfg(cfg, batch_bases // max(num_shards, 1))
     cfg_pre_base = dataclasses.replace(cfg, unfiltered=True)
 
     partial_k: list[list[np.ndarray]] = [[] for _ in range(num_shards)]
@@ -998,9 +957,8 @@ def count_reads_sharded_streaming(
             np.zeros(cfg.upper + 1, np.int32),
         )
 
-    # Lay the per-(shard, batch) partials out as sentinel-padded pow2 runs:
-    # the merge pass then only pays log2(runs) bitonic merge levels, not a
-    # full re-sort (each partial is already ascending).
+    # Lay the per-(shard, batch) partials out as sentinel-padded pow2 runs
+    # (each partial is already ascending).
     n_batches = max(len(pk) for pk in partial_k)
     run_len = _next_pow2(
         max(
@@ -1060,9 +1018,7 @@ def _shard_body_ext_range(
     )
     mixed = _build_marked_mixed(codes.astype(jnp.int8), valid, cfg)
     payloads = [rid.astype(jnp.uint32), pos.astype(jnp.uint32)]
-    _, mixed_s, payl_s = sort_ops.sort_marked(
-        mixed, payloads, backend=cfg.sort_backend
-    )
+    _, mixed_s, payl_s = sort_ops.sort_marked(mixed, payloads)
     merged_w, merged_p, totals, overflow = _range_exchange_merge(
         mixed_s, payl_s, cfg, num_shards, capacity
     )
@@ -1096,7 +1052,7 @@ def _shard_body_ext_bucketed(
     flat_invalid = (~recv_valid.reshape(-1)).astype(jnp.uint32)
 
     inv_s, words_s, payloads_s = sort_ops.sort_keys(
-        flat_invalid, flat_w, payloads=flat_p, backend=cfg.sort_backend
+        flat_invalid, flat_w, payloads=flat_p
     )
     svalid = inv_s == 0
     head, cnt = count_ops.run_length_count(svalid, words_s)
@@ -1131,7 +1087,7 @@ def _count_sharded_ext_jit(
         mesh=mesh,
         in_specs=(P(SHARD_AXIS),) * 4,
         out_specs=(word_specs,) + (P(SHARD_AXIS),) * 4 + (P(), P()),
-        check_rep=False,
+        check_vma=False,
     )(codes, valid, rid, pos)
 
 
@@ -1263,7 +1219,7 @@ def count_reads_sharded_ext(
     the (rid, pos) payloads are derived on device from the read lengths —
     ~9x less wire than shipping (int8, bool, int32, uint32) per base.
     """
-    from ..pipeline import KmerListExt, host_histogram, resolved_cfg
+    from ..pipeline import KmerListExt, host_histogram
 
     mesh = mesh or make_mesh()
     if cfg.routing == "supermer":
@@ -1273,9 +1229,6 @@ def count_reads_sharded_ext(
             codes, lengths, cfg, mesh, read_id_offset, min_dims
         )
     num_shards = mesh.devices.size
-    cfg = resolved_cfg(
-        cfg, codes.shape[0] // max(num_shards, 1), extra_operands=2
-    )
 
     if cfg.routing == "range":
         packed, lens2d, block_len, rid_base = distribute_reads_packed(

@@ -1,6 +1,6 @@
 """Rank-aware logging.
 
-TPU-native analogue of the reference's Logger (include/logger.hpp:12-30,
+Analogue of the reference's Logger (include/logger.hpp:12-30,
 src/logger.cpp:109-160), which buffers per-rank messages and gathers them to
 root over MPI. In the JAX world a "rank" is a host process
 (jax.process_index()); gathering uses multihost_utils when a multi-host

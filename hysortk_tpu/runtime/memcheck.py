@@ -1,10 +1,10 @@
 """Host + device memory telemetry.
 
 Analogue of the reference's memcheck (src/memcheck.cpp:7-106): VmRSS/VmHWM
-from /proc/self/status and MemFree from /proc/meminfo, plus the TPU-specific
-addition the reference has no equivalent for — per-device HBM stats from
-jax's memory_stats(). The reference uses MemFree to pick its sorter
-(src/kmerops.cpp:1344-1379); we use HBM headroom to size device batches.
+from /proc/self/status and MemFree from /proc/meminfo, plus the addition the
+reference has no equivalent for — per-device memory stats from jax's
+memory_stats(). The reference uses MemFree to pick its sorter
+(src/kmerops.cpp:1344-1379); we use device headroom to size device batches.
 """
 
 from __future__ import annotations
@@ -69,11 +69,23 @@ def get_hbm_stats(device=None) -> Optional[dict]:
 
 
 def hbm_headroom_bytes(device=None, safety: float = 0.9) -> Optional[int]:
-    """Usable HBM headroom; the analogue of the reference's sort_decision
-    input (90% of MemFree, src/kmerops.cpp:1358-1376)."""
-    stats = get_hbm_stats(device)
+    """Usable device-memory headroom; the analogue of the reference's
+    sort_decision input (90% of MemFree, src/kmerops.cpp:1358-1376).
+
+    None on CPU devices, which report no memory stats. An accelerator
+    without memory stats is an error: every batch-sizing rule depends on
+    this number, and no default fits every card.
+    """
+    import jax
+
+    dev = device or jax.local_devices()[0]
+    stats = get_hbm_stats(dev)
     if not stats or not stats["bytes_limit"]:
-        return None
+        if dev.platform == "cpu":
+            return None
+        raise RuntimeError(
+            f"device {dev} ({dev.device_kind}) reports no memory stats"
+        )
     return int(stats["bytes_limit"] * safety) - stats["bytes_in_use"]
 
 

@@ -1,7 +1,7 @@
 // Native host-side hot loops for hysortk_tpu, exposed as a C ABI shared
 // library consumed via ctypes (io/native.py).
 //
-// These are the TPU build's equivalents of the reference's host hot loops:
+// These are this build's equivalents of the reference's host hot loops:
 //   * ASCII -> 2-bit packing        (reference DnaSeq::compress, src/dnaseq.cpp:9-80)
 //   * FASTA newline-strip + pack    (reference FastaIndex::getmydna, src/fastaindex.cpp:248-293)
 //   * packed-key -> ASCII decode    (reference Kmer::GetString, include/kmer.hpp:147-163)
@@ -15,7 +15,13 @@
 #include <vector>
 
 #if defined(_OPENMP)
+#ifdef _OPENMP
 #include <omp.h>
+#else
+// Built without OpenMP (no OpenMP runtime on the host): the pragmas are
+// ignored and every loop runs on one thread.
+static inline int omp_get_max_threads() { return 1; }
+#endif
 #endif
 
 extern "C" {

@@ -22,8 +22,42 @@ def test_missing_fasta_arg():
 
 
 def test_invalid_sort_choice():
-    with pytest.raises(SystemExit):
-        cli.build_parser().parse_args(["x.fa", "--sort", "bogus"])
+    """The sort is plain lax.sort on every platform: no --sort flag."""
+    for value in ("xla", "pallas", "auto", "bogus"):
+        with pytest.raises(SystemExit):
+            cli.build_parser().parse_args(["x.fa", "--sort", value])
+
+
+@pytest.mark.parametrize("extension", [False, True])
+def test_cli_single_device_on_multi_device_host(tmp_path, monkeypatch,
+                                                extension):
+    """--single-device runs on one device even where JAX sees several:
+    the sharded entry points must not be reached."""
+    import jax
+
+    from hysortk_tpu.parallel import pipeline as shard_pipeline
+
+    assert len(jax.devices()) > 1
+
+    def refuse(*a, **k):
+        raise AssertionError("sharded path reached under --single-device")
+
+    for name in ("count_reads_sharded", "count_reads_sharded_ext",
+                 "count_reads_sharded_streaming"):
+        monkeypatch.setattr(shard_pipeline, name, refuse)
+    rng = np.random.default_rng(4)
+    reads = oracle.random_reads(rng, 12, 40, 80) * 2
+    fasta = tmp_path / "s.fa"
+    fasta.write_text("".join(f">r{i}\n{r}\n" for i, r in enumerate(reads)))
+    outdir = tmp_path / "out"
+    args = [str(fasta), str(outdir), "-k", "31", "-l", "2", "-u", "50",
+            "--single-device", "--no-histogram"]
+    assert cli.main(args + (["--extension"] if extension else [])) == 0
+    want = {
+        k.encode(): v
+        for k, v in oracle.oracle_filtered(reads, 31, 2, 50).items()
+    }
+    assert writer.parse_output_files(str(outdir)) == want
 
 
 def test_cli_end_to_end(tmp_path, capsys):
@@ -102,8 +136,8 @@ def test_cli_device_compact_streaming(tmp_path):
 
 
 def test_cli_supermer_streaming_end_to_end(tmp_path):
-    """supermer + --stream-batch-bases is now a real path (VERDICT round-3
-    missing #2): bounded batches through the supermer dispatch."""
+    """supermer + --stream-batch-bases is a real path: bounded batches
+    through the supermer dispatch."""
     import jax
 
     if len(jax.devices()) < 2:

@@ -1,4 +1,4 @@
-"""Runtime utilities: logger, timer, memcheck, profiling, hashes, sort_decision."""
+"""Runtime utilities: logger, timer, memcheck, profiling, hashes."""
 
 import io
 import time
@@ -7,7 +7,6 @@ import numpy as np
 import pytest
 
 from hysortk_tpu.ops import hashes
-from hysortk_tpu.ops.sort import sort_decision
 from hysortk_tpu.runtime import memcheck, profiling
 from hysortk_tpu.runtime.logger import Logger
 from hysortk_tpu.runtime.timer import Timer
@@ -66,36 +65,6 @@ def test_device_seconds_measures():
     assert 0 <= sec < 5
 
 
-def test_sort_decision_returns_valid_backend():
-    assert sort_decision(1 << 20, 2) in ("xla", "pallas")
-
-
-def test_auto_backend_flips_on_headroom(monkeypatch):
-    """cfg.sort_backend == "auto" resolves via sort_decision: tight fake
-    HBM headroom must flip the choice to the in-place-capable Pallas path
-    (the reference's RADULS-vs-PARADIS rule, src/kmerops.cpp:1344-1379)."""
-    from hysortk_tpu.ops import sort as sort_ops
-    from hysortk_tpu.pipeline import resolved_cfg
-    from hysortk_tpu.config import KmerConfig
-    from hysortk_tpu.runtime import memcheck
-
-    cfg = KmerConfig(k=31, m=17, lower=1, upper=50, sort_backend="auto")
-    monkeypatch.setattr(memcheck, "hbm_headroom_bytes", lambda d=None: 1 << 40)
-    assert resolved_cfg(cfg, 1 << 20).sort_backend == "xla"
-    monkeypatch.setattr(memcheck, "hbm_headroom_bytes", lambda d=None: 1 << 20)
-    assert resolved_cfg(cfg, 1 << 20).sort_backend == "pallas"
-    # Non-auto configs pass through untouched.
-    cfg_x = KmerConfig(k=31, m=17, lower=1, upper=50, sort_backend="xla")
-    assert resolved_cfg(cfg_x, 1 << 20) is cfg_x
-    # End-to-end: auto never reaches the jitted pipeline unresolved.
-    import hysortk_tpu as H
-
-    codes = np.asarray([0, 1, 2, 3] * 40, np.int8)
-    lengths = np.asarray([160], np.int64)
-    kl, _ = H.kmer_count(codes, lengths, cfg)
-    assert len(kl) >= 0
-
-
 def test_murmurhash3_64_known_vectors():
     # Self-consistency + avalanche sanity (no external vectors needed:
     # equality with the reference oracle is covered end-to-end elsewhere).
@@ -119,8 +88,7 @@ def test_wanghash64_roundtrip():
 
 
 def test_snap_batch_to_pow2_flat():
-    """Streaming batches sit exactly on pow2 flattened sizes (lax.sort pads
-    to the next pow2 internally; crossing the boundary costs ~26%)."""
+    """Streaming batches sit exactly on pow2 flattened sizes."""
     from hysortk_tpu.runtime.scheduler import snap_batch_to_pow2_flat
 
     for batch, pad in ((1 << 26, 8192), (1 << 26, 1024), ((1 << 26) + 5, 1024),
@@ -134,8 +102,8 @@ def test_snap_batch_to_pow2_flat():
 
 
 def test_suggest_pipe_depth_scales_with_width(monkeypatch):
-    """Depth shrinks as key width grows (K=55 at depth 8 OOM'd a 16 GB
-    chip; the rule replaces the manual 'use depth 3')."""
+    """Depth shrinks as key width grows, so wide keys never run out of
+    device memory by configuration."""
     from hysortk_tpu.runtime import memcheck
     from hysortk_tpu.runtime.scheduler import suggest_pipe_depth
 

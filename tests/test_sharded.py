@@ -92,9 +92,8 @@ def test_minimizer_routing_matches_oracle(combiner):
 
 def test_range_capacity_tracks_mean_at_any_shape():
     """Wire capacity must stay ~= mean + mean/64 at EVERY n_local, not just
-    pow2-snapped ones: the round-4 rule rounded the mean up to a pow2
-    first, which at a mean just above a boundary shipped 2.03x n_local and
-    merged 4x (weak-scaling efficiency 0.83 -> 0.55, SCALING_r05)."""
+    pow2-snapped ones: a rule rounding the mean up to a pow2 first would,
+    at a mean just above a boundary, ship 2.03x n_local and merge 4x."""
     from hysortk_tpu.parallel.pipeline import range_capacity
     from hysortk_tpu.ops import spill
 

@@ -109,7 +109,7 @@ def test_streaming_spill_forced(monkeypatch, lower):
 
 def test_capacity_is_exact_at_pow2_batches():
     """The planned main plane must be 1x n_local/S (not 2x) for a pow2
-    batch — the whole point of the spill design (VERDICT round-3 weak #2)."""
+    batch — the whole point of the spill design."""
     cfg = KmerConfig(k=31, m=17, lower=2, upper=50)
     from hysortk_tpu.parallel.pipeline import range_capacity
 

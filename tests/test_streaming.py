@@ -105,7 +105,7 @@ def test_sharded_streaming_duplicates_across_batches():
 @needs_mesh
 def test_sharded_streaming_heavy_single_batch_count():
     """A kmer whose per-batch count would exceed any uint16 cap must keep
-    its exact total (the streaming analogue of the ADVICE high finding)."""
+    its exact total (a count above any per-batch cap must survive)."""
     from hysortk_tpu.parallel.pipeline import count_reads_sharded_streaming
 
     reads = ["A" * 2100]  # poly-A: one kmer, count 2070 in one batch

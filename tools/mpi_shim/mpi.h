@@ -5,8 +5,8 @@
  *
  * This is test tooling for the hysortk_tpu project; it is NOT a general MPI.
  */
-#ifndef HYSORTK_TPU_MPI_SHIM_H_
-#define HYSORTK_TPU_MPI_SHIM_H_
+#ifndef HYSORTK_MPI_SHIM_H_
+#define HYSORTK_MPI_SHIM_H_
 
 #include <stddef.h>
 #include <stdio.h>
@@ -95,4 +95,4 @@ int MPI_File_read_at_all(MPI_File fh, MPI_Offset offset, void *buf, int count,
 }
 #endif
 
-#endif /* HYSORTK_TPU_MPI_SHIM_H_ */
+#endif /* HYSORTK_MPI_SHIM_H_ */
